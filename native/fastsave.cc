@@ -1,6 +1,6 @@
 // Threaded TSV checkpoint writer.
 //
-// TPU-native counterpart of the reference's native matrix writer
+// Native counterpart of the reference's native matrix writer
 // (matrix.hh:1140-1166: rows "seq \t externalID \t v0 ... vK-1" at
 // %.8f). Checkpoints are written every rfreq iterations
 // (hgaprec.cc:2137-2158); at Netflix scale one family is 480189 x 100
@@ -8,7 +8,7 @@
 // dominant cost of the whole run. Here rows are formatted in parallel
 // blocks and written sequentially.
 //
-// Exposed via ctypes from hgaprec_tpu/data/native.py; falls back to the
+// Exposed via ctypes from hgaprec_jax/data/native.py; falls back to the
 // Python writer when the toolchain is unavailable.
 
 #include <cstdint>

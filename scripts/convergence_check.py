@@ -24,20 +24,17 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import jax  # noqa: E402
 
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-jax.config.update("jax_compilation_cache_dir", os.path.join(ROOT, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
-jax.config.update("jax_persistent_cache_enable_xla_caches", "none")
+from hgaprec_jax.compile_cache import configure_compile_cache  # noqa: E402
+
+configure_compile_cache()
 
 N, M = 6040, 3681
 SEED = 20260817
 
 
 def build(variant, k):
-    from hgaprec_tpu.data.ratings import RatingsStore
-    from hgaprec_tpu.data.synthetic import generate_pf_counts
+    from hgaprec_jax.data.ratings import RatingsStore
+    from hgaprec_jax.data.synthetic import generate_pf_counts
 
     rng = np.random.default_rng(SEED)
     cache = os.path.join(ROOT, ".bench_cache", f"ml1m_{N}x{M}_{SEED}.npz")
@@ -74,8 +71,8 @@ def main():
     k = int(sys.argv[2]) if len(sys.argv) > 2 else 100
     max_iters = int(sys.argv[3]) if len(sys.argv) > 3 else 1000
 
-    from hgaprec_tpu.config import ModelConfig, RunConfig
-    from hgaprec_tpu.models.engine import Trainer
+    from hgaprec_jax.config import ModelConfig, RunConfig
+    from hgaprec_jax.models.engine import Trainer
 
     store, validation, test = build(variant, k)
     print(f"train nnz={store.coo_y.size} validation={len(validation)} "
@@ -89,7 +86,7 @@ def main():
                      outdir=outdir, rfreq=10, seed=1,
                      max_iterations=max_iters,
                      enforce_max_iterations=True)
-    from hgaprec_tpu.models.state import init_state
+    from hgaprec_jax.models.state import init_state
 
     tr = Trainer(store, validation, test, mcfg, rcfg)
     # warmup pass: compile the fused chunk + step + every eval kernel on

@@ -27,7 +27,7 @@ import matplotlib  # noqa: E402
 matplotlib.use("Agg")
 import matplotlib.pyplot as plt  # noqa: E402
 
-from hgaprec_tpu.eval import analysis  # noqa: E402
+from hgaprec_jax.eval import analysis  # noqa: E402
 
 
 def plot_precision_recall(outdir, test_tsv=None):

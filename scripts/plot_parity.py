@@ -1,7 +1,8 @@
 #!/usr/bin/env python
-"""Render the reference-vs-framework parity curves (docs/parity_r2.json)
+"""Render the reference-vs-framework parity curves (the JSON that
+`scripts/parity_check.py report` writes, .bench_cache/parity/parity.json)
 as small multiples: validation log-likelihood and training ELBO per
-model config. Output: docs/artifacts/parity_curves.png.
+model config. Output: parity_curves.png beside the input.
 """
 import json
 import os
@@ -37,7 +38,7 @@ def style(ax):
 
 def main():
     path = sys.argv[1] if len(sys.argv) > 1 else \
-        os.path.join(ROOT, "docs", "parity_r2.json")
+        os.path.join(ROOT, ".bench_cache", "parity", "parity.json")
     d = json.load(open(path))
     cfgs = [c for c in ("bpf", "bpfbin", "bpfbias", "hpf") if c in d]
     fig, axes = plt.subplots(2, len(cfgs), figsize=(3.1 * len(cfgs), 5.4),
@@ -68,11 +69,11 @@ def main():
             ax.set_ylabel("training ELBO (1e6)", fontsize=9, color=INK)
         style(ax)
     axes[0, 0].legend(frameon=False, fontsize=8, loc="lower left")
-    fig.suptitle("Reference binary vs TPU framework — shared ML-1M-scale "
+    fig.suptitle("Reference binary vs JAX implementation — shared ML-1M-scale "
                  "dataset, K=100", fontsize=11, color=INK)
     fig.tight_layout(rect=(0, 0, 1, 0.96))
-    out = os.path.join(ROOT, "docs", "artifacts", "parity_curves.png")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
+    out = os.path.join(os.path.dirname(os.path.abspath(path)),
+                       "parity_curves.png")
     fig.savefig(out)
     print(out)
 

@@ -4,7 +4,7 @@
 The reference's run.pl (run.pl:61-179) hard-codes N/M/rating-threshold
 presets per dataset and assembles an hgaprec command line; smallrun.pl
 carries subsampled variants. This launcher does the same for the
-TPU-native CLI:
+JAX CLI:
 
   python scripts/run.py -dataset movielens -dataloc DATA [-K 100]
         [-hier] [-bias] [-binary] [-novb] [-logl] [-hyp] [-label L]
@@ -48,7 +48,7 @@ def build_cmd(a) -> list:
         sys.exit(f"no {'small ' if a.small else ''}preset for {a.dataset!r}"
                  f" (choose from {sorted(PRESETS)})")
     loc = os.path.join(a.dataloc, a.dataset)
-    cmd = [sys.executable, "-m", "hgaprec_tpu.cli",
+    cmd = [sys.executable, "-m", "hgaprec_jax.cli",
            "-dir", loc, "-n", str(preset["n"]), "-m", str(preset["m"]),
            "-k", str(a.K), "-rfreq", str(a.rfreq),
            "-rating-threshold", str(preset["threshold"])]

@@ -1,16 +1,15 @@
 #!/usr/bin/env python
-"""Sharded hybrid big-sparse layout on a real TPU mesh (VERDICT r4 #1).
+"""Sharded hybrid big-sparse layout against the unsharded one.
 
 Builds an EchoNest-preset-shaped synthetic store, runs the SHARDED
-hybrid path (build_sharded_run over a 1-chip mesh — the same shard_map
-program a pod runs, with the mesh collectives compiled in) and compares
-per-iteration time against the unsharded hybrid step on identical data.
-Done-criterion: the sharded path shows no regression on one chip, so
-multi-chip big-sparse no longer silently degrades to the segment sweep.
+hybrid path (build_sharded_run over a mesh of every visible device —
+the same shard_map program a larger mesh runs, with the collectives
+compiled in) and compares per-iteration time against the unsharded
+hybrid step on identical data. On one device this shows what the
+sharding costs; `python chip_smoke.py --four` checks four.
 
-Scaled-down preset by default (n divisible work still dominated by the
-same head matmuls + Pallas tail): full EchoNest needs ~40 min of host
-data gen; pass `full` for the real preset size.
+Scaled-down preset by default (work still dominated by the same head
+matmuls + sparse tail); pass `full` for the real preset size.
 
 Writes .bench_cache/sharded_bigsparse.json.
 """
@@ -25,21 +24,16 @@ sys.path.insert(0, ROOT)
 
 import numpy as np  # noqa: E402
 import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
 
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(ROOT, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
-jax.config.update("jax_persistent_cache_enable_xla_caches", "none")
+from hgaprec_jax.compile_cache import configure_compile_cache  # noqa: E402
+
+configure_compile_cache()
 
 K = 100
 
 
 def build_store(n, m, nnz, seed=5):
-    from hgaprec_tpu.data.ratings import RatingsStore
+    from hgaprec_jax.data.ratings import RatingsStore
     rng = np.random.default_rng(seed)
     u = np.minimum((n * rng.power(3.0, nnz)).astype(np.int64), n - 1)
     i = np.minimum(rng.zipf(1.2, nnz) - 1, m - 1).astype(np.int64)
@@ -61,10 +55,6 @@ def build_store(n, m, nnz, seed=5):
     return store
 
 
-def fence(x):
-    return float(jnp.ravel(jax.tree.leaves(x)[0])[0])
-
-
 def main():
     full = "full" in sys.argv[1:]
     if full:
@@ -76,12 +66,12 @@ def main():
     print(f"store {time.time() - t0:.0f}s nnz={store.nratings / 1e6:.1f}M",
           flush=True)
 
-    from hgaprec_tpu.config import ModelConfig
-    from hgaprec_tpu.data.device import build_device_data
-    from hgaprec_tpu.models.state import init_state
-    from hgaprec_tpu.models.step import (_resolve_mode, cavi_multi_step,
+    from hgaprec_jax.config import ModelConfig
+    from hgaprec_jax.data.device import build_device_data
+    from hgaprec_jax.models.state import init_state
+    from hgaprec_jax.models.step import (_resolve_mode, cavi_multi_step,
                                          make_multi_step)
-    from hgaprec_tpu.parallel.sharded import build_sharded_run, make_mesh
+    from hgaprec_jax.parallel.sharded import build_sharded_run, make_mesh
 
     cfg = ModelConfig(n=store.n, m=store.m, k=K, variant="hpf",
                       sweep="auto", matmul_precision="default",
@@ -98,20 +88,19 @@ def main():
     state = init_state(cfg, seed=1)
     multi = make_multi_step(cfg)
     t0 = time.time()
-    state = multi(state, data, chunk)
-    _ = fence(state.theta.e)
+    state = jax.block_until_ready(multi(state, data, chunk))
     print(f"unsharded compile+first {time.time() - t0:.1f}s", flush=True)
     t0 = time.time()
     for _ in range(2):
         state = multi(state, data, chunk)
-    _ = fence(state.theta.e)
+    jax.block_until_ready(state)
     ms_un = (time.time() - t0) / (2 * chunk) * 1e3
     print(f"unsharded hybrid: {ms_un:.0f} ms/iter", flush=True)
     results["ms_per_iter_unsharded"] = round(ms_un, 1)
     ref_sum = float(np.asarray(state.theta.e, np.float64).sum())
     del data, state
 
-    # ---- sharded hybrid over a 1-chip mesh ------------------------------
+    # ---- sharded hybrid over every visible device ------------------------
     ndev = len(jax.devices())
     mesh = make_mesh(jax.devices()[:ndev])
     run = build_sharded_run(store, cfg, mesh, seed=1)
@@ -119,16 +108,15 @@ def main():
     assert run.data.tail_compact is not None
     assert _resolve_mode(run.cfg, run.data) == "hybrid"
     t0 = time.time()
-    run.multi_step(chunk)
-    _ = fence(run.state.theta.e)
+    jax.block_until_ready(run.multi_step(chunk))
     print(f"sharded({ndev}) compile+first {time.time() - t0:.1f}s",
           flush=True)
     t0 = time.time()
     for _ in range(2):
         run.multi_step(chunk)
-    _ = fence(run.state.theta.e)
+    jax.block_until_ready(run.state)
     ms_sh = (time.time() - t0) / (2 * chunk) * 1e3
-    print(f"sharded({ndev}-chip mesh) hybrid: {ms_sh:.0f} ms/iter "
+    print(f"sharded({ndev}-device mesh) hybrid: {ms_sh:.0f} ms/iter "
           f"({ms_sh / ms_un:.2f}x unsharded)", flush=True)
     results["devices"] = ndev
     results["ms_per_iter_sharded"] = round(ms_sh, 1)

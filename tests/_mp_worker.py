@@ -26,9 +26,9 @@ def main():
 
     import numpy as np
     from conftest import make_synthetic
-    from hgaprec_tpu.config import ModelConfig
-    from hgaprec_tpu.parallel.distributed import is_primary
-    from hgaprec_tpu.parallel.sharded import build_sharded_run, make_mesh
+    from hgaprec_jax.config import ModelConfig
+    from hgaprec_jax.parallel.distributed import is_primary
+    from hgaprec_jax.parallel.sharded import build_sharded_run, make_mesh
 
     rng = np.random.default_rng(42)
     store, validation, test = make_synthetic(rng, n=53, m=31, density=0.3)
@@ -47,8 +47,8 @@ def main():
 
     # multi-host item-sharded ranking eval: every process participates
     # in the collectives; results must be identical everywhere
-    from hgaprec_tpu.eval.score import scorer_from_state
-    from hgaprec_tpu.parallel.sharded import sharded_masked_topk
+    from hgaprec_jax.eval.score import scorer_from_state
+    from hgaprec_jax.parallel.sharded import sharded_masked_topk
     sc = scorer_from_state(st, cfg)
     users = np.asarray([0, 3, 7], np.int64)
     mask_cols = np.full((3, 2), -(10 ** 9), np.int32)
@@ -59,8 +59,8 @@ def main():
     # materialize only this process's training rows, keep GLOBAL id maps,
     # and train identically to the full-store run (the parent wrote the
     # TSV dataset into outdir before spawning us)
-    from hgaprec_tpu.data.ratings import load_dataset
-    from hgaprec_tpu.parallel.distributed import host_user_rows
+    from hgaprec_jax.data.ratings import load_dataset
+    from hgaprec_jax.parallel.distributed import host_user_rows
     store_l, val_l, test_l = load_dataset(outdir, 500, 500, False, 1,
                                           user_rows=host_user_rows)
     store_g, val_g, _ = load_dataset(outdir, 500, 500, False, 1)
@@ -98,7 +98,7 @@ def main():
                                pad_multiple=64)
     assert run_hl.data.head_dense_y is not None
     assert run_hl.data.tail_compact is not None
-    from hgaprec_tpu.models.step import _resolve_mode
+    from hgaprec_jax.models.step import _resolve_mode
     assert _resolve_mode(run_hl.cfg, run_hl.data) == "hybrid"
     for _ in range(2):
         run_hl.step()

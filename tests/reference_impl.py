@@ -2,7 +2,7 @@
 
 Each function restates the corresponding /root/reference/src/hgaprec.cc
 training loop body with explicit Python loops over nonzeros — slow, but
-unambiguous — to serve as the golden model for the jitted TPU steps.
+unambiguous — to serve as the golden model for the jitted steps.
 State dict keys mirror the Gam pytree: shape/rate/e/elog per family.
 """
 
@@ -13,7 +13,7 @@ try:
 except Exception:
     import sys, os
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-    from hgaprec_tpu.ops.gamma import _digamma_np as _psi
+    from hgaprec_jax.ops.gamma import _digamma_np as _psi
 
 
 def expectations(shape, rate):
@@ -257,7 +257,7 @@ def reference_elbo(st, coo, cfg):
 
 
 def state_from_jax(state, cfg_variant, bias, hier):
-    """Convert a hgaprec_tpu ModelState to the dict form."""
+    """Convert a hgaprec_jax ModelState to the dict form."""
     st = {}
     g = state.theta
     st["theta_shape"] = np.asarray(g.shape, np.float64)

@@ -4,8 +4,8 @@ import os
 
 import numpy as np
 
-from hgaprec_tpu.eval import analysis as an
-from hgaprec_tpu.data import readers
+from hgaprec_jax.eval import analysis as an
+from hgaprec_jax.data import readers
 
 
 def test_precision_recall_formulas():
@@ -76,7 +76,7 @@ def test_create_train_test_sets(tmp_path, rng):
     assert 300 < counts["test"] < 500
     assert os.path.exists(tmp_path / "test_users.tsv")
     # loadable by the training path
-    from hgaprec_tpu.data.ratings import load_dataset
+    from hgaprec_jax.data.ratings import load_dataset
     store, val, test = load_dataset(str(tmp_path), 50, 40, False, 1)
     assert store.nratings == counts["train"]
 
@@ -93,7 +93,7 @@ def test_leave_one_out_split(tmp_path, rng):
 
 def test_vectorized_ingest_matches_scalar(tmp_path, rng):
     """Shuffled external ids: vectorized remap == per-row reference path."""
-    from hgaprec_tpu.data.ratings import RatingsStore
+    from hgaprec_jax.data.ratings import RatingsStore
     u = rng.integers(100, 900, 15000)
     i = rng.integers(5000, 5400, 15000)
     y = rng.integers(0, 6, 15000)  # include zeros (dropped)
@@ -117,7 +117,7 @@ def test_vectorized_ingest_matches_scalar(tmp_path, rng):
 
 
 def test_vectorized_ingest_capacity_cap(tmp_path, rng):
-    from hgaprec_tpu.data.ratings import RatingsStore
+    from hgaprec_jax.data.ratings import RatingsStore
     u = rng.integers(0, 50, 20000)
     i = rng.integers(0, 50, 20000)
     y = rng.integers(1, 5, 20000)
@@ -140,9 +140,9 @@ def test_device_topk_matches_host(rng):
     """Streamed device top-k == host argsort path on the same scorer."""
     import jax.numpy as jnp
     from conftest import make_synthetic
-    from hgaprec_tpu.eval.ranking import EvalIndex, masked_user_scores
-    from hgaprec_tpu.eval.score import Scorer
-    from hgaprec_tpu.eval.topk import masked_topk
+    from hgaprec_jax.eval.ranking import EvalIndex, masked_user_scores
+    from hgaprec_jax.eval.score import Scorer
+    from hgaprec_jax.eval.topk import masked_topk
     store, validation, test = make_synthetic(rng, n=40, m=60, density=0.2)
     k = 4
     sc = Scorer(jnp.asarray(rng.random((store.n, k)), jnp.float32),

@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 
 from conftest import make_synthetic
-from hgaprec_tpu import cli
-from hgaprec_tpu.data.synthetic import write_pf_dataset
+from hgaprec_jax import cli
+from hgaprec_jax.data.synthetic import write_pf_dataset
 
 
 @pytest.fixture
@@ -126,7 +126,7 @@ def test_cli_sharded_hybrid_devices(dataset, tmp_path):
 
 
 def test_nmf_reconstructs(rng):
-    from hgaprec_tpu.ops.nmf import nmf
+    from hgaprec_jax.ops.nmf import nmf
     w = rng.gamma(2.0, 1.0, (30, 3)).astype(np.float32)
     h = rng.gamma(2.0, 1.0, (20, 3)).astype(np.float32)
     v = w @ h.T
@@ -136,11 +136,11 @@ def test_nmf_reconstructs(rng):
 
 
 def test_coldstart_prefers_seed_neighbors(rng):
-    from hgaprec_tpu.config import ModelConfig
-    from hgaprec_tpu.data.device import build_device_data
-    from hgaprec_tpu.models.coldstart import fold_in_users
-    from hgaprec_tpu.models.state import init_state
-    from hgaprec_tpu.models.step import make_step
+    from hgaprec_jax.config import ModelConfig
+    from hgaprec_jax.data.device import build_device_data
+    from hgaprec_jax.models.coldstart import fold_in_users
+    from hgaprec_jax.models.state import init_state
+    from hgaprec_jax.models.step import make_step
     store, validation, test = make_synthetic(rng, n=40, m=30, density=0.3)
     cfg = ModelConfig(n=store.n, m=store.m, k=3)
     data = build_device_data(store)
@@ -231,7 +231,7 @@ def test_cli_coldstart_titles(dataset, tmp_path, capsys):
 
 def test_outdir_bridge_suffixes(dataset, tmp_path):
     """Output-dir naming includes bridge-mode suffixes (env.hh:326-369)."""
-    from hgaprec_tpu.config import ModelConfig, RunConfig
+    from hgaprec_jax.config import ModelConfig, RunConfig
     mc = ModelConfig(n=5, m=4, k=2)
     rc = RunConfig(datdir=".", label="x", chi=True, chi_tool="wals",
                    wals_l=0.1, wals_C=10)
@@ -290,7 +290,7 @@ def test_metadata_readers_all_datasets(tmp_path):
     title chain): movielens movies.dat, netflix movie_titles.txt,
     mendeley titles.dat (line number = id, ratings.cc:771-790), and NYT
     nyt-titles.tsv."""
-    from hgaprec_tpu.data import readers
+    from hgaprec_jax.data import readers
 
     (tmp_path / "movies.dat").write_text(
         "1::Toy Story (1995)::Animation\n7::Sabrina (1995)::Romance\n")

@@ -1,13 +1,22 @@
-"""Fused dense Pallas sweep == XLA dense sweep (interpreter mode)."""
+"""Fused dense GPU sweep == XLA dense sweep (interpret mode on the CPU).
+
+The kernel (ops/dense_pallas.py, Pallas on the Triton route) runs here
+through the Pallas interpreter at small tiles; tests/test_dense_gpu.py
+runs the compiled kernel on a card.
+"""
+
+import functools
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 
 from conftest import make_synthetic
-from hgaprec_tpu.data.device import build_device_data
-from hgaprec_tpu.ops.dense_pallas import fused_dense_sweep, pallas_dense_ok
-from hgaprec_tpu.ops.sweep import sweep_dense
+from hgaprec_jax.data.device import build_device_data
+from hgaprec_jax.ops.dense_pallas import (MAX_KP, fused_dense_sweep,
+                                          kernel_width)
+from hgaprec_jax.ops.sweep import Kernels, sweep_dense
 
 
 @pytest.mark.parametrize("n,m,k,pad", [(40, 30, 3, 16), (70, 33, 5, 16),
@@ -31,27 +40,42 @@ def test_fused_matches_xla_dense(rng, n, m, k, pad):
                                rtol=2e-4, atol=1e-5)
 
 
-def test_vmem_gate():
-    assert pallas_dense_ok(17770, 100)       # netflix fits
-    assert not pallas_dense_ok(107523, 100)  # nyt uses the segment path
+def test_kernel_width_gate():
+    """Rows of K factors plus the two bias columns, padded to a power of
+    two; K = 100 with biases still fits the kernel's registers."""
+    assert kernel_width(100, False) == kernel_width(100, True) == 128
+    assert kernel_width(126, True) == MAX_KP
+    assert kernel_width(127, True) > MAX_KP
+    assert kernel_width(3, False) == 16     # Triton's smallest dot side
+
+
+def _force_fused(monkeypatch):
+    """Route every dense block through the fused kernel, interpreted."""
+    import hgaprec_jax.ops.sweep as sw
+    monkeypatch.setattr(sw, "select_kernels",
+                        lambda *a, **kw: Kernels("fused", None))
+    monkeypatch.setattr(sw, "fused_dense_sweep", functools.partial(
+        fused_dense_sweep, tile_u=8, tile_c=16, interpret=True))
 
 
 @pytest.mark.parametrize("variant", ["bpf", "hpf"])
-def test_step_parity_dense_pallas(rng, variant):
+def test_step_parity_dense_pallas(rng, variant, monkeypatch):
     """cavi_step with the fused kernel == cavi_step with the XLA path."""
-    from hgaprec_tpu.config import ModelConfig
-    from hgaprec_tpu.models.state import init_state
-    from hgaprec_tpu.models.step import cavi_step
+    from hgaprec_jax.config import ModelConfig
+    from hgaprec_jax.models.state import init_state
+    from hgaprec_jax.models.step import cavi_step
 
     store, _, _ = make_synthetic(rng, n=24, m=18, density=0.35)
     data = build_device_data(store, pad_multiple=16)
-    base = dict(n=store.n, m=store.m, k=3, variant=variant)
-    s_x = init_state(ModelConfig(**base, sweep="dense"), seed=7)
-    s_p = init_state(ModelConfig(**base, sweep="dense-pallas"), seed=7)
+    cfg = ModelConfig(n=store.n, m=store.m, k=3, variant=variant,
+                      sweep="dense")
+    s_x = init_state(cfg, seed=7)
     for _ in range(3):
-        s_x = cavi_step(s_x, data, ModelConfig(**base, sweep="dense"))
-        s_p = cavi_step(s_p, data,
-                        ModelConfig(**base, sweep="dense-pallas"))
+        s_x = cavi_step(s_x, data, cfg)
+    _force_fused(monkeypatch)
+    s_p = init_state(cfg, seed=7)
+    for _ in range(3):
+        s_p = cavi_step(s_p, data, cfg)
     np.testing.assert_allclose(np.asarray(s_p.theta.e),
                                np.asarray(s_x.theta.e), rtol=5e-4,
                                atol=1e-6)
@@ -138,7 +162,70 @@ def test_row_padded_y(rng):
 def test_odd_n_tiling_not_degenerate():
     """Netflix's odd N (480,189): build-time row padding must give the
     XLA dense path a real tile height, not 1-row tiles."""
-    from hgaprec_tpu.ops.sweep import _user_block_of
+    from hgaprec_jax.ops.sweep import _user_block_of
     assert _user_block_of(480189, 16384) == 1          # the raw landmine
     n_store = -(-480189 // 512) * 512                  # build-time padding
     assert _user_block_of(n_store, 16384) >= 512       # fixed
+
+
+def test_u16_view_byte_order():
+    """The kernel reads Y two counts at a time: the low byte of each u16
+    word is the even column, the high byte the odd one."""
+    from hgaprec_jax.ops.dense_pallas import _planes
+    y = jnp.asarray(np.arange(24, dtype=np.uint8).reshape(3, 8))
+    v = jax.lax.bitcast_convert_type(y.reshape(3, 4, 2), jnp.uint16)
+    even, odd = _planes(v)
+    np.testing.assert_array_equal(np.asarray(even), np.asarray(y[:, 0::2]))
+    np.testing.assert_array_equal(np.asarray(odd), np.asarray(y[:, 1::2]))
+
+
+def test_fused_rejects_float_counts(rng):
+    a = jnp.ones((8, 3))
+    with pytest.raises(TypeError, match="uint8"):
+        fused_dense_sweep(a, a, jnp.ones((8, 8), jnp.float32),
+                          tile_u=8, tile_c=16, interpret=True)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_fused_vs_f64_reference(rng, bias):
+    """Odd N, M off the tile, counts up to 255, against f64 NumPy."""
+    n, m, k = 53, 41, 7
+    y = np.where(rng.random((n, m)) < 0.3, rng.integers(1, 256, (n, m)), 0)
+    a = rng.random((n, k)) + 0.1
+    b = rng.random((m, k)) + 0.1
+    ba, bb = rng.random(n) + 0.05, rng.random(m) + 0.05
+    s = a @ b.T + ((ba[:, None] + bb[None, :]) if bias else 0.0)
+    w = np.where(y > 0, y / s, 0.0)
+    ref = [w @ b, w.T @ a] + ([w.sum(1), w.sum(0)] if bias else [])
+    j = functools.partial(jnp.asarray, dtype=jnp.float32)
+    got = fused_dense_sweep(j(a), j(b), jnp.asarray(y, jnp.uint8),
+                            *((j(ba), j(bb)) if bias else ()),
+                            tile_u=8, tile_c=16, interpret=True)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(np.asarray(g), r, rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_hybrid_head_through_fused_kernel(rng, bias, monkeypatch):
+    """The hybrid head block through the fused kernel == the segment
+    sweep over the whole stream."""
+    from hgaprec_jax.ops.sweep import sweep, sweep_segment
+    store, _, _ = make_synthetic(rng, n=47, m=35, density=0.3)
+    k = 4
+    f = lambda *s: jnp.asarray(rng.normal(size=s).astype(np.float32) * 0.3)
+    ea, eb = f(store.n, k), f(store.m, k)
+    eba, ebb = (f(store.n), f(store.m)) if bias else (None, None)
+    data = build_device_data(store, pad_multiple=16, dense=False,
+                             hybrid_head_items=12)
+    ref = sweep_segment(ea, eb, eba, ebb, data)
+    import hgaprec_jax.ops.sweep as sw
+    monkeypatch.setattr(sw, "select_kernels",
+                        lambda *a, **kw: Kernels("fused", "mxu"))
+    monkeypatch.setattr(sw, "fused_dense_sweep", functools.partial(
+        fused_dense_sweep, tile_u=8, tile_c=16, interpret=True))
+    got = sweep(ea, eb, eba, ebb, data, "hybrid")
+    for g, r in zip(got, ref):
+        if r is not None:
+            np.testing.assert_allclose(np.asarray(g), np.asarray(r),
+                                       rtol=2e-4, atol=1e-5)

@@ -2,13 +2,11 @@
 
 import jax
 
-from hgaprec_tpu.parallel import distributed
+from hgaprec_jax.parallel import distributed
 
 
 def test_single_process_is_noop(monkeypatch):
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES", raising=False)
-    monkeypatch.delenv("MEGASCALE_COORDINATOR_ADDRESS", raising=False)
     assert distributed.initialize_from_env() is False
 
 
@@ -24,8 +22,8 @@ def test_user_rows_ingest(tmp_path):
     (vectorized ingest path, >10k rows) — data/ratings.py user_rows."""
     import numpy as np
 
-    from hgaprec_tpu.data.ratings import load_dataset
-    from hgaprec_tpu.data.synthetic import write_pf_dataset
+    from hgaprec_jax.data.ratings import load_dataset
+    from hgaprec_jax.data.synthetic import write_pf_dataset
 
     write_pf_dataset(str(tmp_path), np.random.default_rng(4), 400, 200,
                      k=6, scale=6.0)

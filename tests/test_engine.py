@@ -6,14 +6,14 @@ import numpy as np
 import pytest
 
 from conftest import make_synthetic
-from hgaprec_tpu.config import ModelConfig, RunConfig
-from hgaprec_tpu.data.ratings import load_dataset
-from hgaprec_tpu.models.engine import Trainer
+from hgaprec_jax.config import ModelConfig, RunConfig
+from hgaprec_jax.data.ratings import load_dataset
+from hgaprec_jax.models.engine import Trainer
 
 
 def write_dataset(tmpdir, rng, n=60, m=40, density=None):
     """Write train/validation/test tsv files from the generative model."""
-    from hgaprec_tpu.data.synthetic import write_pf_dataset
+    from hgaprec_jax.data.synthetic import write_pf_dataset
     write_pf_dataset(str(tmpdir), rng, n, m, k=3, scale=6.0,
                      test_frac=0.15, valid_frac=0.1)
     return n, m

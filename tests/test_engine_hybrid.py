@@ -10,9 +10,9 @@ decision logic run at CPU test scale.
 import numpy as np
 
 from conftest import make_synthetic
-from hgaprec_tpu.config import ModelConfig, RunConfig
-from hgaprec_tpu.models.engine import Trainer
-from hgaprec_tpu.models.step import _resolve_mode
+from hgaprec_jax.config import ModelConfig, RunConfig
+from hgaprec_jax.models.engine import Trainer
+from hgaprec_jax.models.step import _resolve_mode
 
 
 def _trainer(tmp_path, rng, mcfg_kw, n=60, m=45):

@@ -3,8 +3,8 @@
 
 import numpy as np
 
-from hgaprec_tpu.eval import analysis
-from hgaprec_tpu.eval.explore import (active_items_per_factor,
+from hgaprec_jax.eval import analysis
+from hgaprec_jax.eval.explore import (active_items_per_factor,
                                       format_factor_report, related_items,
                                       top_factors_of_user,
                                       top_items_by_factor)

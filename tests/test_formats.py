@@ -5,8 +5,8 @@ import os
 import numpy as np
 
 from conftest import make_synthetic
-from hgaprec_tpu.data import formats
-from hgaprec_tpu.data.ratings import RatingsStore
+from hgaprec_jax.data import formats
+from hgaprec_jax.data.ratings import RatingsStore
 
 
 def _store(rng):

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from hgaprec_tpu.ops import gamma
+from hgaprec_jax.ops import gamma
 
 
 def test_expectations_match_definition():

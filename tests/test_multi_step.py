@@ -11,11 +11,11 @@ import pytest
 import jax
 
 from conftest import make_synthetic
-from hgaprec_tpu.config import ModelConfig
-from hgaprec_tpu.data.device import build_device_data
-from hgaprec_tpu.models.state import init_state
-from hgaprec_tpu.models.step import make_multi_step, make_step
-from hgaprec_tpu.parallel.sharded import build_sharded_run, make_mesh
+from hgaprec_jax.config import ModelConfig
+from hgaprec_jax.data.device import build_device_data
+from hgaprec_jax.models.state import init_state
+from hgaprec_jax.models.step import make_multi_step, make_step
+from hgaprec_jax.parallel.sharded import build_sharded_run, make_mesh
 
 
 @pytest.mark.parametrize("variant,kw", [

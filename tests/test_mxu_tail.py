@@ -10,9 +10,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hgaprec_tpu.data.device import DeviceData, build_device_data
-from hgaprec_tpu.ops.mxu_tail import build_tail_compact, mxu_tail_sweep
-from hgaprec_tpu.ops.sweep import sweep_segment
+from hgaprec_jax.data.device import DeviceData, build_device_data
+from hgaprec_jax.ops.mxu_tail import build_tail_compact, mxu_tail_sweep
+from hgaprec_jax.ops.sweep import sweep_segment
 
 
 def _coo(rng, n, m, nnz):
@@ -96,8 +96,8 @@ def test_inactive_rows_zero():
 def test_hybrid_uses_compact_tail():
     """build_device_data builds the compact tail; hybrid sweep over it
     equals the pure segment sweep over the full stream."""
-    from hgaprec_tpu.data.ratings import RatingsStore
-    from hgaprec_tpu.ops.sweep import sweep_hybrid
+    from hgaprec_jax.data.ratings import RatingsStore
+    from hgaprec_jax.ops.sweep import sweep
 
     rng = np.random.default_rng(5)
     k = 6
@@ -112,10 +112,67 @@ def test_hybrid_uses_compact_tail():
 
     elog_a = jnp.asarray(rng.normal(-0.5, 0.4, (n, k)), jnp.float32)
     elog_b = jnp.asarray(rng.normal(-0.5, 0.4, (m, k)), jnp.float32)
-    res = sweep_hybrid(elog_a, elog_b, None, None, data, interpret=True)
+    res = sweep(elog_a, elog_b, None, None, data, "hybrid")
     ref = sweep_segment(elog_a, elog_b, None, None,
                         _segment_data(store.coo_u, store.coo_i,
                                       store.coo_y.astype(np.float32),
                                       n, m))
     np.testing.assert_allclose(res.acc_a, ref.acc_a, rtol=2e-4, atol=1e-5)
     np.testing.assert_allclose(res.acc_b, ref.acc_b, rtol=2e-4, atol=1e-5)
+
+
+def _stream(rng, layout):
+    """User-sorted, deduplicated COO. "identity": every user and item of
+    the table appears, so compact ids equal the raw ids; "compact": few
+    users and items, far apart, so compaction renumbers them."""
+    if layout == "identity":
+        n, m = 40, 30
+        u = np.repeat(np.arange(n), 4)
+        i = np.concatenate([rng.permutation(m)[:4] for _ in range(n)])
+        i[:m] = np.arange(m)              # every item appears too
+    else:
+        n, m = 500, 400
+        users = np.sort(rng.choice(n, 23, replace=False))
+        items = rng.choice(m, 17, replace=False)
+        u = np.repeat(users, 5)
+        i = np.concatenate([rng.choice(items, 5, replace=False)
+                            for _ in users])
+    key = np.unique(u.astype(np.int64) * m + i)
+    u, i = (key // m).astype(np.int32), (key % m).astype(np.int32)
+    y = rng.integers(1, 6, u.size).astype(np.float32)
+    return n, m, u, i, y
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("layout", ["identity", "compact"])
+def test_matches_reference_impl(bias, layout):
+    """The compact sweep against the f64 per-nonzero reference loop
+    (tests/reference_impl.py phi_of, hgaprec.cc:928-941)."""
+    import reference_impl as R
+
+    rng = np.random.default_rng(29 + bias)
+    n, m, u, i, y = _stream(rng, layout)
+    k = 5
+    ea = rng.normal(-0.5, 0.4, (n, k))
+    eb = rng.normal(-0.5, 0.4, (m, k))
+    eba = rng.normal(-1.0, 0.3, n) if bias else None
+    ebb = rng.normal(-1.0, 0.3, m) if bias else None
+    ref = [np.zeros((n, k)), np.zeros((m, k)), np.zeros(n), np.zeros(m)]
+    for uu, ii, yy in zip(u, i, y):
+        phi = yy * R.phi_of(ea, eb, uu, ii, eba, ebb)
+        ref[0][uu] += phi[:k]
+        ref[1][ii] += phi[:k]
+        if bias:
+            ref[2][uu] += phi[k]
+            ref[3][ii] += phi[k + 1]
+
+    tc = build_tail_compact(u, i, y, pad_multiple=64)
+    if layout == "identity":
+        np.testing.assert_array_equal(np.asarray(tc.users), np.arange(n))
+    lin = lambda x: None if x is None else jnp.exp(jnp.asarray(x,
+                                                               jnp.float32))
+    got = mxu_tail_sweep(lin(ea), lin(eb), lin(eba), lin(ebb), tc, chunk=64)
+    for g, r in zip(got, ref if bias else ref[:2]):
+        np.testing.assert_allclose(np.asarray(g), r, rtol=2e-5, atol=1e-6)
+    if not bias:
+        assert got[2] is None and got[3] is None

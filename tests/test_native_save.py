@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from hgaprec_tpu.data import native
+from hgaprec_jax.data import native
 
 
 def _python_ref(path, x, ext):
@@ -45,7 +45,7 @@ def test_write_tsv_mat_matches_python(tmp_path):
 @pytest.mark.skipif(native._load() is None,
                     reason="native toolchain unavailable")
 def test_save_mat_roundtrip_via_checkpoint(tmp_path):
-    from hgaprec_tpu.io.checkpoint import _load_mat, _save_mat
+    from hgaprec_jax.io.checkpoint import _load_mat, _save_mat
     rng = np.random.default_rng(4)
     x = rng.gamma(0.3, 3.0, (31, 5)).astype(np.float32)
     path = str(tmp_path / "m.tsv")

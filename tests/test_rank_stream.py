@@ -8,15 +8,15 @@ them to the small-scale host implementations on the same data.
 import numpy as np
 
 from conftest import make_synthetic
-from hgaprec_tpu.config import ModelConfig
-from hgaprec_tpu.data.device import build_device_data
-from hgaprec_tpu.data.ratings import leave_one_out_map, \
+from hgaprec_jax.config import ModelConfig
+from hgaprec_jax.data.device import build_device_data
+from hgaprec_jax.data.ratings import leave_one_out_map, \
     validation_users_of_movie
-from hgaprec_tpu.eval import ranking as rank_mod
-from hgaprec_tpu.eval.ranking import EvalIndex, masked_user_scores
-from hgaprec_tpu.eval.score import scorer_from_state
-from hgaprec_tpu.eval.topk import item_ranks
-from hgaprec_tpu.models.state import init_state
+from hgaprec_jax.eval import ranking as rank_mod
+from hgaprec_jax.eval.ranking import EvalIndex, masked_user_scores
+from hgaprec_jax.eval.score import scorer_from_state
+from hgaprec_jax.eval.topk import item_ranks
+from hgaprec_jax.models.state import init_state
 
 
 def _setup(rng, bias=False):

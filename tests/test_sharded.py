@@ -5,11 +5,11 @@ import pytest
 import jax
 
 from conftest import make_synthetic
-from hgaprec_tpu.config import ModelConfig
-from hgaprec_tpu.data.device import build_device_data
-from hgaprec_tpu.models.state import init_state
-from hgaprec_tpu.models.step import make_step
-from hgaprec_tpu.parallel.sharded import build_sharded_run, make_mesh
+from hgaprec_jax.config import ModelConfig
+from hgaprec_jax.data.device import build_device_data
+from hgaprec_jax.models.state import init_state
+from hgaprec_jax.models.step import make_step
+from hgaprec_jax.parallel.sharded import build_sharded_run, make_mesh
 
 
 @pytest.mark.parametrize("variant,kw,dense", [
@@ -66,11 +66,11 @@ def test_sharded_matches_single(rng, variant, kw, dense):
 
 def test_sharded_topk_matches_streamed(rng):
     """Item-sharded top-k (all_gather merge) == single-device streamed."""
-    from hgaprec_tpu.eval.topk import masked_topk
-    from hgaprec_tpu.models.step import make_step
-    from hgaprec_tpu.eval.ranking import EvalIndex
-    from hgaprec_tpu.eval.score import scorer_from_state
-    from hgaprec_tpu.parallel.sharded import sharded_masked_topk
+    from hgaprec_jax.eval.topk import masked_topk
+    from hgaprec_jax.models.step import make_step
+    from hgaprec_jax.eval.ranking import EvalIndex
+    from hgaprec_jax.eval.score import scorer_from_state
+    from hgaprec_jax.parallel.sharded import sharded_masked_topk
 
     store, validation, test = make_synthetic(rng, n=37, m=61, density=0.25)
     cfg = ModelConfig(n=store.n, m=store.m, k=4, variant="bpf")
@@ -104,10 +104,10 @@ def test_sharded_topk_matches_streamed(rng):
 
 def test_sharded_topk_bias_and_small_k(rng):
     """Bias path + k larger than one shard's local item count."""
-    from hgaprec_tpu.eval.ranking import EvalIndex
-    from hgaprec_tpu.eval.score import scorer_from_state
-    from hgaprec_tpu.eval.topk import masked_topk
-    from hgaprec_tpu.parallel.sharded import sharded_masked_topk
+    from hgaprec_jax.eval.ranking import EvalIndex
+    from hgaprec_jax.eval.score import scorer_from_state
+    from hgaprec_jax.eval.topk import masked_topk
+    from hgaprec_jax.parallel.sharded import sharded_masked_topk
 
     store, validation, test = make_synthetic(rng, n=19, m=17, density=0.3)
     cfg = ModelConfig(n=store.n, m=store.m, k=3, variant="bpf", bias=True)
@@ -160,8 +160,8 @@ def test_report_gather_leaf_accounting(rng, monkeypatch):
     Counted through a host_global spy; also pins the npz round trip
     with the derived (elog-less) state.
     """
-    import hgaprec_tpu.parallel.sharded as sh
-    from hgaprec_tpu.io import checkpoint as ckpt
+    import hgaprec_jax.parallel.sharded as sh
+    from hgaprec_jax.io import checkpoint as ckpt
 
     store, _, _ = make_synthetic(rng, n=53, m=31, density=0.3)
     cfg = ModelConfig(n=store.n, m=store.m, k=4, variant="hpf", bias=True,

@@ -14,11 +14,11 @@ import pytest
 import jax
 
 from conftest import make_synthetic
-from hgaprec_tpu.config import ModelConfig
-from hgaprec_tpu.data.device import build_device_data
-from hgaprec_tpu.models.state import init_state
-from hgaprec_tpu.models.step import _resolve_mode, make_step
-from hgaprec_tpu.parallel.sharded import build_sharded_run, make_mesh
+from hgaprec_jax.config import ModelConfig
+from hgaprec_jax.data.device import build_device_data
+from hgaprec_jax.models.state import init_state
+from hgaprec_jax.models.step import _resolve_mode, make_step
+from hgaprec_jax.parallel.sharded import build_sharded_run, make_mesh
 
 
 def _cfg(store, **kw):
@@ -79,7 +79,7 @@ def test_sharded_hybrid_matches_single(rng, variant, kw):
 def test_sharded_hybrid_ragged_shards(rng):
     """Users concentrated in the first shards: later shards carry empty
     or tiny tails, exercising the all-padding TailCompact leaves."""
-    from hgaprec_tpu.data.ratings import RatingsStore
+    from hgaprec_jax.data.ratings import RatingsStore
     n, m = 64, 40
     nnz = 300
     u = np.sort(rng.integers(0, 9, nnz)).astype(np.int64)   # shard 0 only

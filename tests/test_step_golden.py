@@ -6,10 +6,10 @@ import pytest
 import reference_impl as R
 from conftest import make_synthetic
 
-from hgaprec_tpu.config import ModelConfig
-from hgaprec_tpu.data.device import build_device_data
-from hgaprec_tpu.models.state import init_state
-from hgaprec_tpu.models.step import make_step
+from hgaprec_jax.config import ModelConfig
+from hgaprec_jax.data.device import build_device_data
+from hgaprec_jax.models.state import init_state
+from hgaprec_jax.models.step import make_step
 
 
 def _cfg_dict(cfg: ModelConfig):
@@ -99,7 +99,7 @@ def test_elbo_matches_reference(rng):
         store, cfg, iters=3,
         step_ref=lambda s, coo: R.hpf_step(s, coo, _cfg_dict(cfg)),
         sweep_mode="segment")
-    from hgaprec_tpu.models.elbo import training_elbo
+    from hgaprec_jax.models.elbo import training_elbo
     data = build_device_data(store, pad_multiple=128)
     ours = float(training_elbo(state, data, cfg))
     coo = list(zip(store.coo_u.tolist(), store.coo_i.tolist(),
@@ -121,7 +121,7 @@ def test_true_elbo_monotone(rng, variant, kw):
     data = build_device_data(store, pad_multiple=128)
     state = init_state(cfg, seed=3)
     step = make_step(cfg)
-    from hgaprec_tpu.models.elbo import true_elbo
+    from hgaprec_jax.models.elbo import true_elbo
     vals = []
     for _ in range(15):
         state = step(state, data)

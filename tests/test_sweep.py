@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import pytest
 
 from conftest import make_synthetic
-from hgaprec_tpu.data.device import build_device_data
-from hgaprec_tpu.ops.sweep import sweep_dense, sweep_segment, sweep_hybrid
+from hgaprec_jax.data.device import build_device_data
+from hgaprec_jax.ops.sweep import sweep, sweep_dense, sweep_segment
 
 
 def naive_sweep(elog_a, elog_b, bias_a, bias_b, u, i, y):
@@ -34,7 +34,7 @@ def naive_sweep(elog_a, elog_b, bias_a, bias_b, u, i, y):
 
 
 def _setup(rng, bias, n=17, m=13, k=5, nnz=60):
-    from hgaprec_tpu.data.ratings import RatingsStore
+    from hgaprec_jax.data.ratings import RatingsStore
     store = RatingsStore(n, m)
     seen = set()
     while len(seen) < nnz:
@@ -105,7 +105,7 @@ def test_user_blocked_dense_agrees(rng, bias):
 @pytest.mark.parametrize("bias", [False, True])
 def test_chunked_segment_agrees(rng, bias):
     """Streamed segment sweep == one-shot segment sweep."""
-    from hgaprec_tpu.ops.sweep import sweep_segment_chunked
+    from hgaprec_jax.ops.sweep import sweep_segment_chunked
     store, data, elog_a, elog_b, ba, bb = _setup(rng, bias, n=23, m=19,
                                                  nnz=130)
     j = lambda x: None if x is None else jnp.asarray(x, jnp.float32)
@@ -139,7 +139,7 @@ def test_padding_contributes_nothing(rng):
 @pytest.mark.parametrize("bias", [False, True])
 def test_hybrid_matches_segment(rng, bias):
     """Head/tail hybrid sweep == pure segment sweep (same accumulators)."""
-    from hgaprec_tpu.data.device import build_device_data as bdd
+    from hgaprec_jax.data.device import build_device_data as bdd
     store, _, _ = make_synthetic(rng, n=47, m=35, density=0.3)
     k = 4
     elog_a = jnp.asarray(rng.normal(size=(store.n, k)).astype(np.float32)
@@ -161,7 +161,7 @@ def test_hybrid_matches_segment(rng, bias):
     head_set = set(np.asarray(data_h.head_items).tolist())
     tails = np.asarray(data_h.i_ids_tail)[np.asarray(data_h.y_tail) > 0]
     assert tails.size > 0 and not head_set.intersection(tails.tolist())
-    got = sweep_hybrid(elog_a, elog_b, eba, ebb, data_h, interpret=True)
+    got = sweep(elog_a, elog_b, eba, ebb, data_h, "hybrid")
 
     np.testing.assert_allclose(np.asarray(got.acc_a), np.asarray(ref.acc_a),
                                rtol=2e-4, atol=1e-5)
@@ -178,10 +178,10 @@ def test_hybrid_matches_segment(rng, bias):
 
 def test_hybrid_step_matches_segment_step(rng):
     """cavi_step over hybrid data == cavi_step over segment data (HPF)."""
-    from hgaprec_tpu.config import ModelConfig
-    from hgaprec_tpu.data.device import build_device_data as bdd
-    from hgaprec_tpu.models.state import init_state
-    from hgaprec_tpu.models.step import cavi_step
+    from hgaprec_jax.config import ModelConfig
+    from hgaprec_jax.data.device import build_device_data as bdd
+    from hgaprec_jax.models.state import init_state
+    from hgaprec_jax.models.step import cavi_step
     store, _, _ = make_synthetic(rng, n=31, m=23, density=0.35)
     cfg_s = ModelConfig(n=store.n, m=store.m, k=3, variant="hpf",
                         sweep="segment")
